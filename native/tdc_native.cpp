@@ -1,6 +1,6 @@
 // Native host runtime kernels for tudocomp-tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; these are the *host-side*
+// The device compute path is JAX/XLA/Pallas; these are the *host-side*
 // sequential kernels where the reference's C++ runtime had tight loops a
 // Python interpreter cannot match: BWT LF-walks, MTF table updates,
 // canonical-Huffman bit walks, RLE/vbyte stream decoding and the LZ78

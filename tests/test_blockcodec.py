@@ -97,14 +97,14 @@ def test_blockcodec_roundtrip():
 
 
 def test_batchsplit_invariant_with_overpadded_bucket(monkeypatch):
-    """On the TPU backend every batch pads to the ONE full compiled
-    shape — _bucket() can exceed batch_lanes. compress() must trim each
-    batch's outputs to its real lane count before concatenating, or the
-    first batch's pad rows become (empty) frames for every later
-    segment. Mimic the TPU bucket rule on CPU by over-padding."""
+    """A batch's bucket can exceed batch_lanes (a power of two above a
+    batch_lanes that is none). compress() must trim each batch's
+    outputs to its real lane count before concatenating, or the first
+    batch's pad rows become (empty) frames for every later segment.
+    Force it by over-padding every batch."""
     import tudocomp_tpu.models.blockcodec as bc
 
-    monkeypatch.setattr(bc, "_bucket", lambda n, full=0: 128)
+    monkeypatch.setattr(bc, "_bucket", lambda n: 128)
     rng = np.random.default_rng(7)
     data = bytes(rng.integers(0, 64, 100 * 2048, dtype=np.uint8))
     split = BlockCodec(batch_lanes=32).compress(data)
@@ -115,7 +115,7 @@ def test_batchsplit_invariant_with_overpadded_bucket(monkeypatch):
 
 
 def test_blockcodec_device_decode_matches_host():
-    """The TPU lockstep decoder (pure XLA; runs on any backend) must be
+    """The device lockstep decoder (the XLA scan on the CPU) must be
     bit-identical to the host/native specification decoder."""
     codec = BlockCodec()
     rng = np.random.default_rng(5)
@@ -187,94 +187,98 @@ def test_native_rle_decode_rejects_malformed():
         native.rle_decode(bad2, 0)
 
 
-def test_huffman_pack_pairing_bit_identical(monkeypatch):
-    """TDC_PACK_PAIR=1 (paired placement) must produce the exact words,
-    bit counts, and container bytes of the unpaired kernel."""
-    from tudocomp_tpu.ops.segpack_pallas import (
-        CAP_BYTES, huffman_pack_segments,
-    )
-
-    rng = np.random.default_rng(7)
-    nc = 16
-    # mixed-entropy rows + per-segment counts covering odd/even tails
-    data = rng.choice(
-        np.frombuffer(b"aabbbcdefgh\x00\xff", np.uint8),
-        size=(nc, CAP_BYTES),
-    ).astype(np.uint8)
-    counts = rng.integers(0, CAP_BYTES + 1, nc).astype(np.int32)
-    counts[0], counts[1], counts[2] = 0, 1, CAP_BYTES
-    pos = np.arange(CAP_BYTES)[None, :]
-    data = np.where(pos < counts[:, None], data, 0).astype(np.uint8)
-    hist = np.bincount(data[pos < counts[:, None]], minlength=256)
-    table = HuffmanTable.from_counts(np.maximum(hist, 1), max_len=16)
-
-    outs = {}
-    for flag in ("0", "1", "quad"):
-        monkeypatch.setenv("TDC_PACK_PAIR", "1" if flag == "1" else "0")
-        monkeypatch.setenv("TDC_PACK_QUAD", "1" if flag == "quad" else "0")
-        words, bits = huffman_pack_segments(
-            jnp.asarray(data), jnp.asarray(counts),
-            jnp.asarray(table.sym_code.astype(np.uint32)),
-            jnp.asarray(table.sym_len.astype(np.int32)),
-        )
-        outs[flag] = (np.asarray(words), np.asarray(bits))
-    for flag in ("1", "quad"):
-        np.testing.assert_array_equal(outs["0"][1], outs[flag][1])
-        np.testing.assert_array_equal(outs["0"][0], outs[flag][0])
-
-    monkeypatch.setenv("TDC_PACK_PAIR", "1")
-    codec = BlockCodec()
-    sample = b"".join(CORPUS)[: 1 << 16]
-    comp = codec.compress(sample)
-    assert codec.decompress(comp) == sample
-    monkeypatch.setenv("TDC_PACK_PAIR", "0")
-    assert BlockCodec().compress(sample) == comp
-
-
-def test_rle_pack_pairing_bit_identical(monkeypatch):
-    """With TDC_PACK_PAIR=1 the RLE kernel splits run tokens across the
-    run's last two positions; words and byte counts must be identical."""
-    from tudocomp_tpu.ops.segpack_pallas import (
-        SEG_BYTES, rle_pack_segments,
-    )
-
+def _stage_rows():
+    """Segment rows of the kinds the packers see: long runs with 2-byte
+    vbytes, no runs, run-of-2 heavy, mixed text-like; with per-row
+    lengths covering empty, one byte, full and random tails."""
     rng = np.random.default_rng(11)
-    nc = 16
-    rows = []
-    for i in range(nc):
-        if i % 4 == 0:  # long runs incl. 2-byte vbytes (len > 129)
-            rows.append(np.repeat(
-                rng.integers(0, 256, 8, dtype=np.uint8), 256))
-        elif i % 4 == 1:  # no runs
-            rows.append(np.arange(SEG_BYTES, dtype=np.uint8))
-        elif i % 4 == 2:  # run-of-2 heavy
-            rows.append(np.repeat(
-                rng.integers(0, 256, SEG_BYTES // 2, dtype=np.uint8), 2))
-        else:  # mixed text-like
-            rows.append(rng.choice(
-                np.frombuffer(b"aab\ncd  eee", np.uint8), size=SEG_BYTES))
-    data = np.stack([r[:SEG_BYTES] for r in rows]).astype(np.uint8)
-    lens = rng.integers(0, SEG_BYTES + 1, nc).astype(np.int32)
-    lens[0], lens[1] = SEG_BYTES, 1
+    seg = 2048
+    kinds = {
+        "long_runs": np.repeat(rng.integers(0, 256, 8, dtype=np.uint8), 256),
+        "no_runs": np.arange(seg, dtype=np.uint8),
+        "run_of_2": np.repeat(
+            rng.integers(0, 256, seg // 2, dtype=np.uint8), 2
+        ),
+        "text": rng.choice(
+            np.frombuffer(b"aab\ncd  eee", np.uint8), size=seg
+        ),
+    }
+    lens = np.array([seg, 1, 0, 1000, 2047, 1999, 2, 777], np.int32)
+    rows = {}
+    for name, row in kinds.items():
+        r = np.tile(row[:seg], (lens.size, 1))
+        r[np.arange(seg)[None, :] >= lens[:, None]] = 0  # zero-padded
+        rows[name] = r.astype(np.uint8)
+    return rows, lens
 
-    for offset in (0, 1, 125):
-        outs = {}
-        for flag in ("0", "1", "quad"):
-            monkeypatch.setenv("TDC_PACK_PAIR", "1" if flag == "1" else "0")
-            monkeypatch.setenv("TDC_PACK_QUAD", "1" if flag == "quad" else "0")
-            words, nbytes = rle_pack_segments(
-                jnp.asarray(data), jnp.asarray(lens), offset=offset
-            )
-            outs[flag] = (np.asarray(words), np.asarray(nbytes))
-        for flag in ("1", "quad"):
-            np.testing.assert_array_equal(outs["0"][1], outs[flag][1])
-            np.testing.assert_array_equal(outs["0"][0], outs[flag][0])
+
+_ROWS, _LENS = _stage_rows()
+
+
+@pytest.mark.parametrize("offset", [0, 1, 125])
+@pytest.mark.parametrize("kind", sorted(_ROWS))
+def test_rle_stage_matches_host_spec(kind, offset):
+    """Per segment, rle_stage's selected stream, count and escape equal
+    the host spec: compressors/rle.py's rle_encode of the segment, or
+    the verbatim segment when RLE would expand it."""
+    from tudocomp_tpu.models.blockcodec import rle_stage
+
+    rows, lens = _ROWS[kind], _LENS
+    sel, counts, rle_raw, _ = rle_stage(
+        jnp.asarray(rows), jnp.asarray(lens), offset=offset, sample=False
+    )
+    got = np.asarray(bytes_from_words(sel, 2048))
+    counts, rle_raw = np.asarray(counts), np.asarray(rle_raw)
+    for i, n in enumerate(lens.tolist()):
+        spec = rle_encode(rows[i, :n], offset)
+        want_raw = spec.size > n
+        want = rows[i, :n] if want_raw else spec
+        assert bool(rle_raw[i]) == want_raw, i
+        assert counts[i] == want.size, i
+        assert got[i, : want.size].tobytes() == want.tobytes(), i
+        assert not got[i, want.size :].any(), i  # zero past the count
+
+
+@pytest.mark.parametrize("kind", sorted(_ROWS))
+def test_huff_stage_matches_host_spec(kind):
+    """Per segment, huff_stage's payload words, bit count and escape
+    equal io/bitio.py's pack_tokens of the table codes, or the verbatim
+    symbols when coding would not shrink them."""
+    from tudocomp_tpu.io.bitio import pack_tokens
+    from tudocomp_tpu.models.blockcodec import be_words_from_bytes, huff_stage
+
+    rows, counts = _ROWS[kind], _LENS
+    live = np.arange(2048)[None, :] < counts[:, None]
+    hist = np.bincount(rows[live], minlength=256)
+    table = HuffmanTable.from_counts(np.maximum(hist, 1), max_len=16)
+    words, bits, huff_raw = huff_stage(
+        be_words_from_bytes(jnp.asarray(rows)), jnp.asarray(counts),
+        jnp.asarray(table.sym_code.astype(np.uint32)),
+        jnp.asarray(table.sym_len.astype(np.uint32)),
+    )
+    got = np.asarray(bytes_from_words(words, 2048))
+    bits, huff_raw = np.asarray(bits), np.asarray(huff_raw)
+    for i, n in enumerate(counts.tolist()):
+        syms = rows[i, :n]
+        payload, nbits = pack_tokens(
+            table.sym_code[syms].astype(np.uint64),
+            table.sym_len[syms].astype(np.int64),
+        )
+        want_raw = nbits >= 8 * n
+        if want_raw:
+            payload, nbits = syms, 8 * n
+        assert bool(huff_raw[i]) == want_raw, i
+        assert bits[i] == nbits, i
+        nb = (nbits + 7) // 8
+        assert got[i, :nb].tobytes() == payload.tobytes(), i
+        assert not got[i, nb:].any(), i
 
 
 def test_min_code_len_4_schedule(monkeypatch):
     """TDC_MIN_CODE_LEN=4 builds a table whose shortest code is 4 bits;
     decoder_tables then selects the 8-slot schedule and both device
-    decoders roundtrip with it."""
+    decoders (the scan, and the Triton kernel interpreted) roundtrip
+    with it."""
     from tudocomp_tpu.ops.hufdec_jax import decoder_tables
 
     monkeypatch.setenv("TDC_MIN_CODE_LEN", "4")
@@ -294,60 +298,70 @@ def test_min_code_len_4_schedule(monkeypatch):
     d = decoder_tables(tbl)["d"]
     assert d == slots_for(mn) and d <= 8
     assert codec.decompress(comp) == data  # host/native path
-    for kernel in ("scan", "pallas"):
-        monkeypatch.setenv("TDC_DEC_KERNEL", kernel)
-        assert codec.decompress_device(comp) == data, kernel
+    assert codec.decompress_device(comp) == data  # scan on the CPU
+    assert codec.decompress_device(comp, interpret=True) == data
 
 
-def test_pack_mode_byte_matches_w4(monkeypatch):
-    """TDC_PACK_MODE=byte (the cross-checked spec kernels) must produce
-    the exact stage outputs and container bytes of the w4 default —
-    w4 became the default in round 3 and the byte path would otherwise
-    go unexercised (ADVICE r3)."""
-    from tudocomp_tpu.models.blockcodec import (
-        SEG, huff_stage, rle_stage,
-    )
+_GOLDEN = {
+    "empty": "f4d403192e4ed72db3c87465d0a1085cc42d0d1e4fe7f43669a02409ee67559b",
+    "one_byte": "d75eece25ba9c7901e6bdcb626408ed7bbb21e799e8cbbcaf4f3013e66addafa",
+    "one_segment": "c9df8309617b4b0492e849958f53ee9915b2c18d3ea4450bef24cc79abe1359e",
+    "partial_tail": "31e1ce1ae73e08b321ee8624c7b3c918ac4abd522d0721a30e52464081f5ee60",
+    "run_of_2": "aed4b8fc2371cf027ef183be322c867c126c5bdf65f90002982c9a16c7bd11af",
+    "random": "0d99bebf83bca528056e81de6f38ad7638f4952172389c86a8d6133cdd2a7781",
+    "long_runs": "c08ce4847d1f48116cebec2bff4e5470fd1abafed6527942306b117349d7f22e",
+    "sampled_64": "db361c9c12b04f37a3a9334586537d16ff0802efa7987a10494f854e7ec36eba",
+    "offset_125": "0580502ce8654fe57415a2079a1cd3102d6b3ed262bcbfe277ddc3010ca0c6d4",
+    "min_code_len_4": "6063020abda69874a02a686f10afed9089dc77253a73a9ceca7f437b0e8f0b34",
+    "hist_segs_straddle": "e0f1a829d9693e6af872b5b9771af6b1df05491290b898de6a90785f3c36d251",
+}
 
-    rng = np.random.default_rng(13)
-    nc = 16
-    rows = rng.choice(
-        np.frombuffer(b"aaabbcde\nf \x00\xffgg", np.uint8),
-        size=(nc, SEG),
-    ).astype(np.uint8)
-    rows[3] = np.repeat(rng.integers(0, 256, SEG // 128,
-                                     dtype=np.uint8), 128)
-    lens = rng.integers(0, SEG + 1, nc).astype(np.int32)
-    lens[0], lens[1], lens[2] = 0, 1, SEG
-    rows = np.where(np.arange(SEG)[None, :] < lens[:, None],
-                    rows, 0).astype(np.uint8)
-    hist = np.bincount(
-        rows[np.arange(SEG)[None, :] < lens[:, None]], minlength=256)
-    table = HuffmanTable.from_counts(np.maximum(hist, 1), max_len=16)
 
-    outs = {}
-    sample = b"".join(CORPUS)[: 1 << 16]
-    for mode in ("w4", "byte"):
-        monkeypatch.setenv("TDC_PACK_MODE", mode)
-        rle_stage.clear_cache()  # _w4_mode() is read at trace time
-        huff_stage.clear_cache()
-        sel, counts, rle_raw, h = rle_stage(
-            jnp.asarray(rows), jnp.asarray(lens), offset=0, sample=False
-        )
-        words, bits, huff_raw = huff_stage(
-            sel, counts,
-            jnp.asarray(table.sym_code.astype(np.uint32)),
-            jnp.asarray(table.sym_len.astype(np.uint32)),
-        )
-        outs[mode] = tuple(
-            np.asarray(x) for x in
-            (sel, counts, rle_raw, h, words, bits, huff_raw)
-        )
-        comp = BlockCodec().compress(sample)
-        assert BlockCodec().decompress(comp) == sample, mode
-        outs[mode + "_container"] = comp
-    for a, b in zip(outs["w4"], outs["byte"]):
-        np.testing.assert_array_equal(a, b)
-    assert outs["w4_container"] == outs["byte_container"]
-    monkeypatch.delenv("TDC_PACK_MODE", raising=False)
-    rle_stage.clear_cache()
-    huff_stage.clear_cache()
+def _golden_input(name):
+    """(data, codec kwargs) of one pinned container."""
+    rng = np.random.default_rng(2024)
+    text = (b"It was the best of times, it was the worst of times; "
+            b"<page><title>Anarchism</title></page>\n")
+    mixed = (text * 4000)[: 40 * 2048] + bytes(
+        rng.integers(0, 24, 30 * 2048 + 333, dtype=np.uint8))
+    cases = {
+        "empty": (b"", {}),
+        "one_byte": (b"x", {}),
+        "one_segment": ((text * 40)[:2048], {}),
+        "partial_tail": (bytes(rng.integers(
+            0, 4, 5 * 2048 + 17, dtype=np.uint8)), {}),
+        "run_of_2": (np.repeat(rng.integers(
+            0, 256, 3 * 1024, dtype=np.uint8), 2).tobytes(), {}),
+        "random": (bytes(rng.integers(
+            0, 256, 3 * 2048 + 5, dtype=np.uint8)), {}),
+        "long_runs": (b"A" * 5000 + b"B" * 3000 + b"AB" * 250
+                      + b"\x00" * 9000, {}),
+        "sampled_64": (mixed, {}),
+        "offset_125": ((b"aaabbbbbbbbcd" * 900)[: 6 * 2048],
+                       {"offset": 125}),
+        "min_code_len_4": (mixed[: 20 * 2048], {"min_code_len": 4}),
+        "hist_segs_straddle": (np.random.default_rng(5).choice(
+            np.frombuffer(b"abcdeeeeffg \n", np.uint8), 100 * 2048 - 7
+        ).tobytes(), {}),
+    }
+    return cases[name]
+
+
+@pytest.mark.parametrize("name", sorted(_GOLDEN))
+def test_container_golden(name, monkeypatch):
+    """The TBC2 container bytes are pinned: SHA-256 of what the encoder
+    made before its kernels were rewritten in plain XLA. The straddle
+    case lowers the HIST_SEGS cap so a batch straddles it."""
+    import hashlib
+
+    import tudocomp_tpu.models.blockcodec as bc
+
+    data, kw = _golden_input(name)
+    if name == "hist_segs_straddle":
+        monkeypatch.setattr(bc, "HIST_SEGS", 48)
+        comp = BlockCodec(batch_lanes=32).compress(data)
+        assert BlockCodec().compress(data) == comp
+    else:
+        comp = BlockCodec(**kw).compress(data)
+    assert hashlib.sha256(comp).hexdigest() == _GOLDEN[name]
+    assert BlockCodec(**kw).decompress(comp) == data

@@ -78,7 +78,7 @@ def test_esp_default_uses_sorted_range_fit():
     """The default resolves to sorted(d_coding=range_fit) — best ratio
     across the 1 MiB suite corpora (wins only show beyond the sorted
     format's fixed ~32-byte unary lhs prefix, so compare configs by
-    identity here, sizes in docs/BENCHMARKS.md)."""
+    identity here)."""
     from tudocomp_tpu import cli
 
     data = (b"compressible compressible text " * 800)[:16000]

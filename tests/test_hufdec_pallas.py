@@ -1,11 +1,10 @@
-"""Pallas TBC2 decoder (ops/hufdec_pallas.py) vs the scan decoder and
-the container spec — interpret mode (CPU).
+"""Triton-route TBC2 decoder (ops/hufdec_pallas.py) vs the scan decoder
+and the container spec — interpret mode (CPU).
 
 The kernel runs the same lockstep slot schedule as hufdec_jax's scan,
-so decoded bytes must match bit-for-bit. Small inputs + a small step
-count keep interpret-mode cost down (the step loop executes in Python
-there); the real-TPU path is exercised by bench.py and the verify
-recipes.
+so its records must match the scan's bit for bit on every real lane.
+The compiled kernel runs on the GPU through ``chip_smoke.py``, which
+compares it with the scan at full width.
 """
 
 import numpy as np
@@ -15,52 +14,33 @@ from tudocomp_tpu.models.blockcodec import BlockCodec
 from tudocomp_tpu.ops import hufdec_jax as hj
 from tudocomp_tpu.ops.hufdec_pallas import (
     BLOCK,
-    CH,
+    NUM_WARPS,
     decode_segments_pallas,
-    snap_steps_pallas,
-    unpack_records,
 )
 
 
-def _decode_via_pallas(comp: bytes, data: bytes, steps: int | None = None):
+def _decode_both(comp: bytes):
+    """Records of every segment from both decoders, one batch."""
     codec = BlockCodec()
     table, offset, orig_len, counts, flags, poff, pbytes = codec._parse(
         comp
     )
-    t = hj.decoder_tables(table) if table is not None else {
-        "thresh": np.zeros(16, np.int32),
-        "offs": np.zeros(16, np.int32),
-        "masks": np.zeros((8, 8), np.int32),
-    }
+    t = hj.decoder_tables(table)
     nseg = counts.shape[0]
-    need = hj.needed_steps(pbytes, counts)
-    if steps is None:
-        steps = -(-int(need.max()) // CH) * CH
-    assert steps >= int(need.max())
+    steps = hj.snap_steps(int(hj.needed_steps(pbytes, counts, t["d"]).max()))
     b = -(-nseg // BLOCK) * BLOCK
-    flat = np.frombuffer(comp, np.uint8)
-    feed8 = np.zeros((b, steps * 4), np.uint8)
-    ls = np.minimum(pbytes, steps * 4)
-    piece = np.repeat(np.arange(nseg), ls)
-    within = np.arange(int(ls.sum())) - np.repeat(np.cumsum(ls) - ls, ls)
-    feed8[piece, within] = flat[poff[piece] + within]
-    feed = feed8.view(">u4").astype(np.uint32)
-    bc = np.zeros(b, np.int32)
-    bc[:nseg] = counts
-    hrw = np.zeros(b, bool)
-    hrw[:nseg] = (flags & 1).astype(bool)
-    rrw = np.zeros(b, bool)
-    rrw[:nseg] = (flags & 2).astype(bool)
-    packed = decode_segments_pallas(
-        feed, bc, hrw, rrw, t["thresh"], t["offs"], t["masks"],
-        offset=offset, interpret=True,
+    feed, bc, hrw, rrw = hj.build_feed(
+        np.frombuffer(comp, np.uint8), np.arange(nseg), counts, flags,
+        poff, pbytes, steps, b,
     )
-    chars, ends = unpack_records(np.asarray(packed))
-    out_lens = np.minimum(
-        np.full(b, hj.SEG, np.int64),
-        np.maximum(orig_len - hj.SEG * np.arange(b), 0),
+    tabs = (t["thresh"], t["offs"], t["syms"])
+    got = decode_segments_pallas(
+        feed, bc, hrw, rrw, *tabs, offset=offset, d=t["d"], interpret=True
     )
-    return hj.expand_records(chars, ends, out_lens)[:orig_len]
+    ref = hj.decode_segments(
+        feed, bc, hrw, rrw, *tabs, offset=offset, d=t["d"]
+    )
+    return nseg, orig_len, got, ref
 
 
 @pytest.mark.parametrize(
@@ -73,27 +53,29 @@ def _decode_via_pallas(comp: bytes, data: bytes, steps: int | None = None):
     ids=["text", "raw", "runs"],
 )
 def test_pallas_decode_matches_input(data):
-    codec = BlockCodec()
-    comp = codec.compress(data)
-    assert _decode_via_pallas(comp, data) == data
+    comp = BlockCodec().compress(data)
+    nseg, orig_len, (chars, ends), (rc, re) = _decode_both(comp)
+    chars, ends = np.asarray(chars)[:nseg], np.asarray(ends)[:nseg]
+    np.testing.assert_array_equal(chars, np.asarray(rc)[:nseg])
+    np.testing.assert_array_equal(ends, np.asarray(re)[:nseg])
+    out = hj.expand_records(chars, ends).reshape(-1)[:orig_len]
+    assert out.tobytes() == data
 
 
 def test_pallas_bucket_constants():
-    # every scan bucket must have a pallas bucket at least as large,
-    # and pallas buckets must be CH-aligned
-    for s in hj.S_BUCKETS:
-        assert snap_steps_pallas(s) >= s
-    from tudocomp_tpu.ops.hufdec_pallas import P_BUCKETS
+    # one lane per thread, a power-of-two block (Triton block shapes),
+    # and every decode lane bucket (a power of two >= BLOCK) tiles it
+    assert BLOCK == NUM_WARPS * 32
+    assert BLOCK & (BLOCK - 1) == 0
+    from tudocomp_tpu.models.blockcodec import _bucket
 
-    for p in P_BUCKETS:
-        assert p % CH == 0
-    assert P_BUCKETS[-1] >= hj.DEC_STEPS
+    for n in (1, BLOCK - 1, BLOCK + 1, 3000, 65536):
+        assert max(_bucket(n), BLOCK) % BLOCK == 0
 
 
-def test_decompress_device_pallas_env(monkeypatch):
-    # force the pallas branch of BlockCodec.decompress_device on CPU
-    monkeypatch.setenv("TDC_DEC_KERNEL", "pallas")
+def test_decompress_device_pallas_env():
+    # the Triton branch of BlockCodec.decompress_device, interpreted
     data = b"the quick brown fox " * 80 + b"\x01\x02" * 32
     codec = BlockCodec()
     comp = codec.compress(data)
-    assert codec.decompress_device(comp) == data
+    assert codec.decompress_device(comp, interpret=True) == data

@@ -135,7 +135,7 @@ class HuffmanTable:
             lengths = gen_codelengths_limited(counts256[eff], max_len)
         if min_len is not None and lengths.size > 1:
             # lengthening codes keeps the Kraft sum <= 1, so a canonical
-            # code with the clamped lengths always exists. The TPU
+            # code with the clamped lengths always exists. The device
             # decoder's drain invariant needs min length >= 2.
             lengths = np.maximum(lengths, min_len).astype(lengths.dtype)
         from tudocomp_tpu.debug import check_kraft

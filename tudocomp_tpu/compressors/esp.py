@@ -589,7 +589,7 @@ class EspCompressor(Compressor):
         m = Meta("compressor", "esp", "ESP based grammar compression")
         # deliberate divergence: the reference defaults to the plain SLP
         # coder (EspCompressor.hpp:25). Measured on the 1 MiB suite
-        # corpora (docs/BENCHMARKS.md), the dep-sorted coder with the
+        # corpora, the dep-sorted coder with the
         # range_fit d_coding wins on every corpus (english 41%, dna 51%,
         # repetitive 2.6% vs plain-SLP 74%), so that is the default; the
         # reference's own sorted default (succinct) remains selectable.

@@ -14,7 +14,7 @@ Compression strategies (``comp=``):
   ``compress/MaxHeapStrategy.hpp``-equivalent behavior)
 - ``naive``: rescan for the max each round (reference
   ``compress/NaiveStrategy.hpp``)
-- ``device``: the same greedy as a TPU array program — parallel rounds
+- ``device``: the same greedy as a device array program — parallel rounds
   of disjoint max-class selections, truncation recomputed from the
   covered set (``ops/lcpcomp_jax.py``); ratio <= arrays on the 1 MB
   suite corpora (english 28.9% vs 29.1%)
@@ -23,7 +23,7 @@ Decompression strategies (``dec=``): ``scan`` (default), ``compact``,
 ``MultimapListBuffer(lazy)`` (lazy sweep rounds + eager chase) and
 ``QueueListBuffer`` (breadth-parallel eager fixpoint) — the reference's
 full registered set (``etc/registry_config.py:160-163``).  scan/compact
-use the TPU-native re-derivation of the reference's chain-chasing
+use a data-parallel re-derivation of the reference's chain-chasing
 (``decompress/ScanDec.hpp:61-120``): every factor-covered position maps
 to its source position, and the mapping is resolved to literal roots by
 **pointer doubling** — O(log chain) vectorized rounds instead of the

@@ -18,8 +18,9 @@ compressors built on it:
 
 Factorization runs on the host (vectorized numpy + the native C
 factorizer/decoder in ``native/tdc_native.cpp``); there is no device
-factorization kernel yet — the TPU path for LZ-class output is the
-flagship segment codec (``models/blockcodec.py``).
+factorization kernel here — the device paths are ``lzss_lcp``'s
+``comp=device`` matcher and the flagship segment codec
+(``models/blockcodec.py``).
 """
 
 from __future__ import annotations
@@ -459,7 +460,7 @@ def parse_factor_arrays(decoder):
 
 
 def decode_factor_text_device(decoder) -> bytes:
-    """Factor-stream decode with the copy resolution on the TPU:
+    """Factor-stream decode with the copy resolution on the device:
     token parse on the host (native mode-1 walker), then per-position
     pointer doubling on the device (``ops/lzss_jax.py
     resolve_factors_device``) — bit-identical to the host back-buffer
@@ -727,7 +728,7 @@ class LZSSLCPCompressor(Compressor):
         #   slightly worse ratio) — an alternative valid parse.
         m.option_dynamic("comp", "psv")
         # dec=host: native back-buffer walk. dec=device: copy resolution
-        #   as pointer-doubling rounds on the TPU (bit-identical).
+        #   as pointer-doubling rounds on the device (bit-identical).
         m.option_dynamic("dec", "host")
         m.needs_sentinel_terminator()
         return m

@@ -3,7 +3,7 @@
 Format follows the reference ``compressors/RunLengthEncoder.hpp``: a run
 of ``n >= 2`` equal bytes is stored as the byte twice followed by
 ``vbyte(n - 2 + offset)``; single bytes are stored verbatim. One
-TPU-native amendment (see ``ops/rle_jax.py``): runs are split into pieces
+device-friendly amendment (see ``ops/rle_jax.py``): runs are split into pieces
 of at most ``RUN_CAP = 8192`` bytes, so every piece's wire contribution
 fits one 32-bit packer token. The reference decoder keeps ``prev = c``
 armed after a run (``RunLengthEncoder.hpp`` rle_decode), so a

@@ -9,26 +9,24 @@ Options cover everything that changes *bytes or decode behavior*:
 
 - ``offset``        RLE run-length bias (container header field)
 - ``min_code_len``  Huffman minimum code length, 3..8 (trades payload
-                    size against TPU decode slot count)
-- ``dec``           decode kernel: ``auto`` (pallas on TPU, scan
-                    elsewhere) | ``pallas`` | ``scan`` | ``host``
+                    size against device decode slot count)
+- ``dec``           decoder: ``auto`` (the device on the GPU, the
+                    native host decoder on the CPU) | ``device`` |
+                    ``host``
 
-Speed-only kernel tuning (bit-identical output) stays on env vars by
-design — it must not fragment jit caches or the option grid:
-TDC_PACK_MODE (w4 word-element vs byte kernels) / TDC_PACK_PAIR /
-TDC_PACK_QUAD / TDC_PACK_WINDOW / TDC_PACK_GROUP / TDC_OFFS_IMPL
-(ops/segpack_pallas.py), TDC_DEC_KERNEL (overrides ``dec``),
-TDC_MIN_CODE_LEN (overrides ``min_code_len``).
+``TDC_MIN_CODE_LEN`` overrides ``min_code_len``. The device kernels are
+chosen by ``backend.py``.
 
 Reference counterpart: none (the reference is single-core C++); this
 is the BASELINE.json config-1/2 pipeline (rle:encode(huff)) re-designed
-TPU-first.
+for a data-parallel device.
 """
 
 from __future__ import annotations
 
 from tudocomp_tpu.compressors.base import Compressor
 from tudocomp_tpu.meta import Meta
+from tudocomp_tpu.stats import StatPhase
 
 
 class TBC2Compressor(Compressor):
@@ -48,23 +46,34 @@ class TBC2Compressor(Compressor):
     def _codec(self):
         from tudocomp_tpu.models.blockcodec import BlockCodec
 
-        dec = self.env.option("dec").as_string()
         return BlockCodec(
             offset=self.env.option("offset").as_int(),
             min_code_len=self.env.option("min_code_len").as_int(),
-            dec_kernel=None if dec in ("auto", "host") else dec,
         )
+
+    def decoder(self) -> str:
+        """The decoder ``decompress`` runs: ``"host"`` (native spec
+        path) or the device kernel ``backend.tbc2_decoder`` picks."""
+        from tudocomp_tpu import backend
+
+        dec = self.env.option("dec").as_string()
+        if dec in ("pallas", "scan"):  # kernel names older headers carry
+            dec = "device"
+        if dec not in ("auto", "device", "host"):
+            raise ValueError(f"tbc2: unknown dec={dec!r}")
+        if dec == "host" or (
+            dec == "auto" and not backend.decode_on_device()
+        ):
+            return "host"
+        return backend.tbc2_decoder()
 
     def compress(self, data: bytes) -> bytes:
         return self._codec().compress(data)
 
     def decompress(self, data: bytes) -> bytes:
-        import jax
-
         codec = self._codec()
-        dec = self.env.option("dec").as_string()
-        if dec == "host" or (
-            dec == "auto" and jax.default_backend() != "tpu"
-        ):
+        decoder = self.decoder()
+        StatPhase.log("tbc2 decoder", decoder)
+        if decoder == "host":
             return codec.decompress(data)
         return codec.decompress_device(data)

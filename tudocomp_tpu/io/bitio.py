@@ -2,13 +2,13 @@
 
 This is the executable specification: semantics follow ``io/spec.md`` (which
 mirrors the reference's ``io/BitOStream.hpp`` / ``io/BitIStream.hpp``). The
-TPU packing kernel in ``tudocomp_tpu.ops.bitpack`` must produce bit-identical
+device packing kernel in ``tudocomp_tpu.ops.bitpack`` must produce bit-identical
 output; tests pin that.
 
 Design: the writer is *token-buffered* — every write appends ``(value, len)``
 tokens (len <= 32) and the byte stream is produced in one vectorized pass at
 ``getvalue()``. This keeps host encoding fast and shares the packing math
-with the TPU kernel.
+with the device kernel.
 """
 
 from __future__ import annotations

@@ -41,18 +41,10 @@ def bits_for_u32(v: jnp.ndarray) -> jnp.ndarray:
     return jnp.maximum(out + _U32(1), _U32(1))
 
 
-def pack_tokens_device(values: jnp.ndarray, lens: jnp.ndarray):
-    """Pack tokens (lens <= 32) into big-endian uint32 words on device.
-
-    Returns ``(words: uint32[N+1], total_bits: int32)``. ``N+1`` words always
-    suffice: total bits <= 32*N. Padding tokens must have ``lens == 0``.
-    """
-    n = values.shape[0]
-    values = values.astype(_U32)
-    lens = lens.astype(_U32)
-    ends = jnp.cumsum(lens, dtype=jnp.uint32)
-    total = ends[-1] if n else jnp.uint32(0)
-    offs = ends - lens
+def _token_parts(values: jnp.ndarray, lens: jnp.ndarray,
+                 offs: jnp.ndarray):
+    """Each token's two word contributions: ``part1`` into word
+    ``offs >> 5`` and ``spill`` into the next word (lens <= 32)."""
     mask = jnp.where(
         lens >= _U32(32),
         _U32(0xFFFFFFFF),
@@ -70,6 +62,22 @@ def pack_tokens_device(values: jnp.ndarray, lens: jnp.ndarray):
         (v & ((_U32(1) << rsh) - _U32(1))) << (_U32(32) - rsh),
         _U32(0),
     )
+    return part1, spill
+
+
+def pack_tokens_device(values: jnp.ndarray, lens: jnp.ndarray):
+    """Pack tokens (lens <= 32) into big-endian uint32 words on device.
+
+    Returns ``(words: uint32[N+1], total_bits: int32)``. ``N+1`` words always
+    suffice: total bits <= 32*N. Padding tokens must have ``lens == 0``.
+    """
+    n = values.shape[0]
+    values = values.astype(_U32)
+    lens = lens.astype(_U32)
+    ends = jnp.cumsum(lens, dtype=jnp.uint32)
+    total = ends[-1] if n else jnp.uint32(0)
+    offs = ends - lens
+    part1, spill = _token_parts(values, lens, offs)
     w0 = (offs >> _U32(5)).astype(jnp.int32)
     n_words = n + 1
     words = jax.ops.segment_sum(
@@ -77,6 +85,39 @@ def pack_tokens_device(values: jnp.ndarray, lens: jnp.ndarray):
     ) + jax.ops.segment_sum(
         spill, w0 + 1, num_segments=n_words, indices_are_sorted=True
     )
+    return words.astype(_U32), total.astype(jnp.int32)
+
+
+def pack_token_rows(values: jnp.ndarray, lens: jnp.ndarray, n_words: int):
+    """Pack each row of ``[R, N]`` tokens (lens <= 32) into its own
+    big-endian word stream starting at bit 0.
+
+    Returns ``(words: uint32[R, n_words], total_bits: int32[R])``: a
+    row's bits past ``32 * n_words`` are dropped, its total counts them
+    all. One flat sorted ``segment_sum`` over every row: each row owns
+    ``n_words + 1`` output slots, the last one collecting the dropped
+    bits.
+    """
+    r, n = values.shape
+    values = values.astype(_U32)
+    lens = lens.astype(_U32)
+    ends = jnp.cumsum(lens, axis=1, dtype=jnp.uint32)
+    total = ends[:, -1] if n else jnp.zeros(r, _U32)
+    offs = ends - lens
+    part1, spill = _token_parts(values, lens, offs)
+    w0 = (offs >> _U32(5)).astype(jnp.int32)
+    base = (jnp.arange(r, dtype=jnp.int32) * (n_words + 1))[:, None]
+    slots = r * (n_words + 1)
+    words = jax.ops.segment_sum(
+        part1.reshape(-1),
+        (base + jnp.minimum(w0, n_words)).reshape(-1),
+        num_segments=slots, indices_are_sorted=True,
+    ) + jax.ops.segment_sum(
+        spill.reshape(-1),
+        (base + jnp.minimum(w0 + 1, n_words)).reshape(-1),
+        num_segments=slots, indices_are_sorted=True,
+    )
+    words = words.reshape(r, n_words + 1)[:, :n_words]
     return words.astype(_U32), total.astype(jnp.int32)
 
 

@@ -1,43 +1,32 @@
-"""Device (TPU) decoder for the TBC2 flagship container.
+"""Device decoder for the TBC2 flagship container: the plain XLA form.
 
-Decodes canonical-Huffman-coded RLE segments **without a single gather**
-— on this hardware every gather formulation measures ~100M elem/s
-(etc/probe_ops.py) while word-fed lockstep scans, cumsums and one
-batched sort are 10-50x cheaper. Reference decode semantics being
-reproduced: bit-by-bit canonical walk ``coders/HuffmanCoder.hpp:377-397``
-and RLE expansion ``compressors/RunLengthEncoder.hpp:36-49``.
+A ``lax.scan`` over the lockstep decode schedule. It is the CPU decoder
+and the reference the GPU kernel (``ops/hufdec_pallas.py``) is tested
+against. Reference decode semantics being reproduced: bit-by-bit
+canonical walk ``coders/HuffmanCoder.hpp:377-397`` and RLE expansion
+``compressors/RunLengthEncoder.hpp:36-49``.
 
 Design (one segment = one SIMD lane, thousands of segments in lockstep):
 
 1. **Word-fed scan.** xs feeds each lane one big-endian u32 of its
-   payload per step (positional feed -> no gather). Each lane carries a
-   64-bit left-justified bit buffer (two i32 halves) plus the RLE parser
-   state. Per step it decodes up to ``D = 11`` symbols (unrolled slots).
-   With the table's minimum code length forced >= 3 (and raw segments at
-   8 bits/symbol), ``D * Lmin >= 32`` bits drain per full step, so the
-   buffer never exceeds 63 bits — the feed schedule is static. (Forcing
-   min length 3 instead of 2 costs < 0.2% ratio after the RLE layer has
-   flattened the distribution, and cuts slot count — the decode cost —
-   by 31%.)
+   payload per step. Each lane carries a 64-bit left-justified bit
+   buffer (two i32 halves) plus the RLE parser state. Per step it
+   decodes up to ``D = 11`` symbols (unrolled slots). With the table's
+   minimum code length forced >= 3 (and raw segments at 8 bits/symbol),
+   ``D * Lmin >= 32`` bits drain per full step, so the buffer never
+   exceeds 63 bits — the feed schedule is static.
 2. **Canonical length detection = 16 threshold compares.** The
    Managing-Gigabytes firstcode recurrence makes the 16-bit-scaled
    thresholds ``fc[l] << (16-l)`` monotone non-increasing in ``l``, so
    ``len = 1 + sum_l [window < thresh_l]`` — no argmin, no lookup.
-3. **Bit-sliced symbol map.** ``sym_index -> byte`` is a 256-entry table
-   realized as 8 output bits x 8 broadcast u32 mask words: select the
-   word with an unrolled 8-way compare chain, then a dynamic shift. Pure
-   VPU; replaces the one-hot-256 matmul (materialization-bound) and the
-   256-entry gather (~100M/s) which both measure too slow.
+3. **Symbol map.** ``sym_index -> byte`` is a 256-entry table gather.
 4. **Fused RLE record parse.** The reference RLE state machine (armed
    previous char, vbyte accumulator) runs inside the same scan on each
    decoded byte, emitting per-slot ``(char, cumulative output end)``.
 5. **No device compaction.** Slots that emit no record repeat the
    previous cumulative end, so the host finish — one global
-   ``np.repeat`` over diff-of-ends deltas (memset-class; the bytes
-   must cross to the host anyway) — consumes the positional arrays
-   directly. A compaction sort was measured at 84 ms/16 MiB (66% of
-   the kernel) against ~8 ms of extra PCIe-class transfer it saves:
-   strictly worse unless d2h is below ~1.5 GB/s.
+   ``np.repeat`` over diff-of-ends deltas — consumes the positional
+   arrays directly.
 
 Container framing required: per segment ``count <= SEG`` symbols and
 payload <= ``8 * count`` bits (the encoder's raw-escape flags guarantee
@@ -127,11 +116,20 @@ def decoder_tables(table):
 
     Returns dict of numpy arrays: ``thresh`` i32[16] (16-bit-scaled
     firstcode thresholds, monotone non-increasing), ``offs`` i32[16]
-    (sym_index = (window >> (16-l)) + offs[l-1]), ``masks`` i32[8, 8]
-    (bit-sliced sorted-symbol table). Requires max code length <= 16 and
-    min >= 3 (the TBC2 encoder enforces both; 11 slots * 3 bits >= one
-    32-bit feed word is the drain invariant).
+    (sym_index = (window >> (16-l)) + offs[l-1]), ``syms`` i32[256]
+    (sorted-symbol table) and ``d`` (slots per feed word). Requires max
+    code length <= 16 and min >= 3 (the TBC2 encoder enforces both;
+    11 slots * 3 bits >= one 32-bit feed word is the drain invariant).
+    ``table=None`` (every segment huff_raw) gives tables that are never
+    read.
     """
+    if table is None:
+        return {
+            "thresh": np.zeros(16, np.int32),
+            "offs": np.zeros(16, np.int32),
+            "syms": np.zeros(256, np.int32),
+            "d": D,
+        }
     longest = table.longest
     assert 1 <= longest <= 16
     min_len = int(table.lengths.min())
@@ -150,18 +148,12 @@ def decoder_tables(table):
     offs = np.zeros(16, np.int64)
     for l in range(1, longest + 1):
         offs[l - 1] = start_of_len[l - 1] - int(fc[l - 1])
-    syms = np.zeros(256, np.uint8)
+    syms = np.zeros(256, np.int32)
     syms[: table.symbols.size] = table.symbols
-    masks = np.zeros((8, 8), np.uint64)
-    for k in range(8):
-        bits = (syms.astype(np.uint64) >> np.uint64(k)) & np.uint64(1)
-        for w in range(8):
-            chunk = bits[w * 32 : (w + 1) * 32]
-            masks[k, w] = (chunk << np.arange(32, dtype=np.uint64)).sum()
     return {
         "thresh": thresh.astype(np.int32),
         "offs": offs.astype(np.int32),
-        "masks": masks.astype(np.uint32).view(np.int32),
+        "syms": syms,
         # slots per feed word for THIS table: a table whose shortest
         # code is >= 4 bits decodes with 8 slots instead of 11 (27%
         # less slot work) at the same schedule invariants
@@ -169,29 +161,9 @@ def decoder_tables(table):
     }
 
 
-def _bitsliced_byte(idx, masks):
-    """256-entry lookup via 8 bit-plane masks (no gather): byte whose
-    bit k is bit ``idx`` of the 256-bit constant ``masks[k]``.
-
-    ``masks``: i32[8, 8] broadcast operand (8 output bits x 8 words)."""
-    word_i = lax.shift_right_logical(idx, 5)  # 0..7
-    bit_i = idx & 31
-    onehot = (
-        word_i[:, None] == jnp.arange(8, dtype=idx.dtype)[None, :]
-    ).astype(idx.dtype)  # [n, 8]
-    # W[n, k] = masks[k, word_i[n]]
-    W = jnp.sum(onehot[:, None, :] * masks[None, :, :], axis=2)
-    bits = (
-        lax.shift_right_logical(
-            W, jnp.broadcast_to(bit_i[:, None], W.shape)
-        ) & 1
-    )
-    return jnp.sum(bits << jnp.arange(8, dtype=idx.dtype)[None, :], axis=1)
-
-
 @functools.partial(jax.jit, static_argnames=("offset", "d"))
 def decode_segments(feed, counts, raw_flags, rle_raw_flags, thresh, offs,
-                    masks_arr, *, offset: int = 0, d: int = D):
+                    syms, *, offset: int = 0, d: int = D):
     """Lockstep-decode a batch of segments.
 
     feed: u32[nseg, DEC_STEPS] big-endian payload words (zero padded)
@@ -199,7 +171,7 @@ def decode_segments(feed, counts, raw_flags, rle_raw_flags, thresh, offs,
     raw_flags: bool[nseg] huff_raw segments (8-bit verbatim symbols)
     rle_raw_flags: bool[nseg] segments whose symbols are verbatim output
         bytes (RLE layer bypassed — every symbol is a 1-byte record)
-    thresh/offs: i32[16] from decoder_tables; masks_arr: i32[8,8]
+    thresh/offs: i32[16], syms: i32[256] from decoder_tables
 
     Returns ``(chars u8[nseg, S], ends u16[nseg, S])`` with one column
     per decode slot (S = steps * d): ``ends`` is the cumulative
@@ -214,6 +186,7 @@ def decode_segments(feed, counts, raw_flags, rle_raw_flags, thresh, offs,
     ).T  # [steps, nseg]
     thresh = thresh.astype(_I32)
     offs = offs.astype(_I32)
+    syms = syms.astype(_I32)
     raw = raw_flags.astype(jnp.bool_)
     rleraw = rle_raw_flags.astype(jnp.bool_)
     counts = counts.astype(_I32)
@@ -251,10 +224,7 @@ def decode_segments(feed, counts, raw_flags, rle_raw_flags, thresh, offs,
             lhot = ln[:, None] == (1 + jnp.arange(16, dtype=_I32))[None, :]
             off_sel = jnp.sum(jnp.where(lhot, offs[None, :], 0), axis=1)
             idx = jnp.clip(prefix + off_sel, 0, 255)
-            byte = jnp.where(
-                raw, lax.shift_right_logical(win, 8),
-                _bitsliced_byte(idx, masks_arr),
-            )
+            byte = jnp.where(raw, lax.shift_right_logical(win, 8), syms[idx])
             valid = (bits >= 16) & (done < counts)
             take = jnp.where(valid, ln, 0)
             take1 = jnp.maximum(take, 1)  # keep shift args in [1, 16]
@@ -316,21 +286,25 @@ def decode_segments(feed, counts, raw_flags, rle_raw_flags, thresh, offs,
     return chars, ends
 
 
-def expand_records(chars: np.ndarray, ends: np.ndarray,
-                   out_lens: np.ndarray) -> bytes:
+def expand_records(chars: np.ndarray, ends: np.ndarray) -> np.ndarray:
     """Host finish: one global np.repeat over all lanes' record slots.
 
-    chars u8 / ends u16: [nseg, S] from decode_segments (ends monotone
-    per lane; zero-delta slots carry no record); out_lens: actual output
-    bytes per segment (SEG except the final segment).
+    chars u8 / ends u16: [nseg, S] from a decoder (ends monotone per
+    lane, <= SEG; zero-delta slots carry no record). Returns
+    ``u8[nseg, SEG]``: each lane's output, zero-padded to SEG bytes (a
+    final record per lane fills the pad), so callers place whole rows
+    and cut the last segment to the original length.
     """
-    ends = np.minimum(
-        np.asarray(ends, np.int64),
-        np.asarray(out_lens, np.int64)[:, None],
+    n = ends.shape[0]
+    e = np.concatenate(
+        [
+            np.zeros((n, 1), np.int32),
+            np.asarray(ends, np.int32),
+            np.full((n, 1), SEG, np.int32),
+        ],
+        axis=1,
     )
-    chars = np.asarray(chars, np.uint8)
-    prev = np.concatenate(
-        [np.zeros((ends.shape[0], 1), np.int64), ends[:, :-1]], axis=1
+    ch = np.concatenate(
+        [np.asarray(chars, np.uint8), np.zeros((n, 1), np.uint8)], axis=1
     )
-    deltas = np.maximum(ends - prev, 0)
-    return np.repeat(chars.ravel(), deltas.ravel()).tobytes()
+    return np.repeat(ch.ravel(), np.diff(e, axis=1).ravel()).reshape(n, SEG)

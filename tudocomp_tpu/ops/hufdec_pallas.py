@@ -1,36 +1,29 @@
-"""Pallas (Mosaic) decoder for the TBC2 flagship container.
+"""TBC2 segment decoder as one Pallas kernel on the Triton route (GPU).
 
 Same lockstep decode schedule as the XLA scan in ``hufdec_jax.py``
 (reference semantics: canonical walk ``coders/HuffmanCoder.hpp:377-397``
-+ RLE expansion ``compressors/RunLengthEncoder.hpp:36-49``) but the
-step loop runs *inside* one kernel. The scan decoder's cost is per-step
-XLA dispatch (~20-30 us/step at 16K lanes; each step is a handful of
-elementwise ops on [lanes] vectors — far too small to fill the chip).
-Here a grid step owns a (8, 128) = 1024-lane tile and executes
-``CH = 16`` feed steps x ``D = 11`` unrolled decode slots as straight
-VPU code over in-register state, so the only per-step cost is the
-vector ALU work itself.
++ RLE expansion ``compressors/RunLengthEncoder.hpp:36-49``), but the
+whole step loop runs inside one kernel with each lane's decoder state
+in registers. The scan pays one while-loop iteration per slot and keeps
+its state in device memory between them.
 
-Layout (one segment = one lane of an (8, 128) tile):
+Layout (one segment = one lane = one thread):
 
-- feed      i32[B, steps*8, 128]   big-endian payload words, step-major
-- counts    i32[B, 8, 128]         symbols per segment
-- raw/rleraw i32[B, 8, 128]        escape flags (1/0)
-- thresh/offs SMEM i32[16], masks SMEM i32[64] (8 bit-planes x 8 words)
-- out       i32[B, steps*D*8, 128] packed records ``char << 16 | end``
-
-State (9 vars x (8, 128) i32) lives in a VMEM scratch that persists
-across the sequential chunk grid dimension; it is re-initialized when
-``chunk == 0``. All slot math is elementwise i32 with vector shift
-amounts (same ops the segment packers already use in-kernel).
+- a program owns ``BLOCK`` consecutive lanes (blocks run in any order;
+  nothing carries between programs);
+- feed ``i32[steps, nseg]`` is step-major, so each step's load of the
+  block's words is one coalesced row;
+- records ``i32[steps * d, nseg]`` (``char << 16 | end``) are
+  slot-major, so each slot's store is one coalesced row;
+- the 16 thresholds and 16 offsets are loaded once per program; the
+  symbol map is a gather from the 1 KiB 256-entry table.
 
 Bit-identical to ``hufdec_jax.decode_segments`` by construction: same
-refill rule (add one 32-bit word when <= 31 bits buffered), same
-16-threshold canonical length detection, same bit-sliced symbol map,
-same fused RLE record state machine, same slot validity rule. Extra
-padded steps (buckets are multiples of CH) only run drained lanes whose
-slots emit zero-delta records — the host ``np.repeat`` finish ignores
-them.
+refill rule, same 16-threshold length detection, same symbol map, same
+fused RLE record state machine, same slot validity rule. Every shift
+amount stays inside [0, 31] (Triton leaves wider shifts undefined where
+XLA gives 0); the clamps ``sh1``/``take1`` and the ``16 - ln`` bound
+keep them there.
 """
 
 from __future__ import annotations
@@ -39,64 +32,37 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from tudocomp_tpu.ops.hufdec_jax import D, SEG
 
-LANES = 128
-SUB = 8
-BLOCK = SUB * LANES  # 1024 segments per grid tile
-CH = 16              # feed steps per chunk grid step
-
-#: static step buckets (multiples of CH, each >= the matching scan
-#: bucket in hufdec_jax.S_BUCKETS so `snap` always finds a fit)
-P_BUCKETS = (208, 336, 528)
+#: lanes per program: one lane per thread of NUM_WARPS warps
+BLOCK = 128
+NUM_WARPS = 4
 
 _I32 = jnp.int32
 
 
-def snap_steps_pallas(need: int) -> int:
-    for s in P_BUCKETS:
-        if need <= s:
-            return s
-    return P_BUCKETS[-1]
-
-
 def _srl(x, n):
-    if isinstance(n, int):
-        n = jnp.broadcast_to(_I32(n), x.shape)
-    return lax.shift_right_logical(x, n)
+    return lax.shift_right_logical(x, jnp.broadcast_to(_I32(n), x.shape)
+                                   if isinstance(n, int) else n)
 
 
-def _decode_kernel(thresh_ref, offs_ref, masks_ref, feed_ref, counts_ref,
-                   raw_ref, rleraw_ref, out_ref, state_ref, *,
-                   offset: int, steps: int, d: int = D):
-    c = pl.program_id(1)
-
-    @pl.when(c == 0)
-    def _init():
-        z = jnp.zeros((SUB, LANES), _I32)
-        for i in range(9):
-            state_ref[i * SUB : (i + 1) * SUB, :] = (
-                jnp.full((SUB, LANES), -1, _I32) if i == 4 else z
-            )
-
-    counts = counts_ref[0]
-    raw = raw_ref[0] != 0
-    rleraw = rleraw_ref[0] != 0
-
-    def ld(i):
-        return state_ref[i * SUB : (i + 1) * SUB, :]
-
-    carry = tuple(ld(i) for i in range(9))
+def _decode_kernel(thresh_ref, offs_ref, syms_ref, feed_ref, counts_ref,
+                   raw_ref, rleraw_ref, out_ref, *, offset: int, steps: int,
+                   d: int):
+    thresh = [thresh_ref[l] for l in range(16)]
+    offs = [offs_ref[l] for l in range(16)]
+    counts = counts_ref[...]
+    raw = raw_ref[...] != 0
+    rleraw = rleraw_ref[...] != 0
 
     def step(t, carry):
         (hi, lo, bits, done, armed, vb_pend, vb_char, vb_acc,
          out_end) = carry
-        w = feed_ref[0, pl.ds(t * SUB, SUB), :]
+        w = feed_ref[t, :]
         # refill: place w's 32 bits after the `bits` valid bits
         refill = bits <= 31
         sh = jnp.minimum(bits, 31)
@@ -111,28 +77,17 @@ def _decode_kernel(thresh_ref, offs_ref, masks_ref, feed_ref, counts_ref,
 
         for slot_i in range(d):
             win = _srl(hi, 16)
-            ln = jnp.ones((SUB, LANES), _I32)
+            ln = jnp.ones_like(win)
             for l in range(16):
-                ln = ln + (win < thresh_ref[l]).astype(_I32)
+                ln = ln + (win < thresh[l]).astype(_I32)
             ln = jnp.minimum(ln, 16)
             ln = jnp.where(raw, _I32(8), ln)
             prefix = _srl(win, 16 - ln)
-            off_sel = jnp.zeros((SUB, LANES), _I32)
+            off_sel = jnp.zeros_like(win)
             for l in range(16):
-                off_sel = jnp.where(ln == l + 1, offs_ref[l], off_sel)
+                off_sel = jnp.where(ln == l + 1, offs[l], off_sel)
             idx = jnp.clip(prefix + off_sel, 0, 255)
-            # bit-sliced 256-entry symbol map (8 planes x 8 words)
-            word_i = _srl(idx, 5)
-            bit_i = idx & 31
-            byte = jnp.zeros((SUB, LANES), _I32)
-            for k in range(8):
-                wk = jnp.zeros((SUB, LANES), _I32)
-                for wi in range(8):
-                    wk = jnp.where(
-                        word_i == wi, masks_ref[k * 8 + wi], wk
-                    )
-                byte = byte | ((_srl(wk, bit_i) & 1) << k)
-            byte = jnp.where(raw, _srl(win, 8), byte)
+            byte = jnp.where(raw, _srl(win, 8), syms_ref[idx])
             valid = (bits >= 16) & (done < counts)
             take = jnp.where(valid, ln, 0)
             take1 = jnp.maximum(take, 1)
@@ -172,91 +127,54 @@ def _decode_kernel(thresh_ref, offs_ref, masks_ref, feed_ref, counts_ref,
             )
             armed = jnp.where(valid & ~is_vb, byte, armed)
             out_end = jnp.minimum(out_end + delta, SEG)
-            out_ref[0, pl.ds((t * d + slot_i) * SUB, SUB), :] = (
-                (char << 16) | out_end
-            )
+            out_ref[t * d + slot_i, :] = (char << 16) | out_end
         return (hi, lo, bits, done, armed, vb_pend, vb_char, vb_acc,
                 out_end)
 
-    # t is chunk-local: feed/out refs are the c-th chunk's blocks
-    carry = lax.fori_loop(0, CH, step, carry, unroll=False)
-    for i in range(9):
-        state_ref[i * SUB : (i + 1) * SUB, :] = carry[i]
+    z = jnp.zeros((BLOCK,), _I32)
+    init = (z, z, z, z, jnp.full((BLOCK,), -1, _I32), z, z, z, z)
+    lax.fori_loop(0, steps, step, init)
 
 
 @functools.partial(
-    jax.jit, static_argnames=("offset", "steps", "interpret", "d")
+    jax.jit, static_argnames=("offset", "interpret", "d")
 )
-def _decode_pallas_jit(feed, counts, raw, rleraw, thresh, offs, masks,
-                       *, offset: int, steps: int, interpret: bool,
-                       d: int = D):
-    b = feed.shape[0]
-    assert steps % CH == 0 and feed.shape[1] == steps * SUB
+def decode_segments_pallas(feed, counts, raw_flags, rle_raw_flags, thresh,
+                           offs, syms, *, offset: int = 0, d: int = D,
+                           interpret: bool = False):
+    """Drop-in for ``hufdec_jax.decode_segments``: same arguments (feed
+    u32[nseg, steps], nseg % BLOCK == 0) and the same result
+    ``(chars u8[nseg, steps*d], ends u16[nseg, steps*d])``."""
+    nseg, steps = feed.shape
+    assert nseg % BLOCK == 0, nseg
+    feed_t = lax.bitcast_convert_type(feed.astype(jnp.uint32), _I32).T
     kernel = functools.partial(
         _decode_kernel, offset=offset, steps=steps, d=d
     )
-    out = pl.pallas_call(
+    lanes = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    packed = pl.pallas_call(
         kernel,
-        grid=(b, steps // CH),
+        grid=(nseg // BLOCK,),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, CH * SUB, LANES), lambda i, c: (i, c, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((1, SUB, LANES), lambda i, c: (i, 0, 0)),
-            pl.BlockSpec((1, SUB, LANES), lambda i, c: (i, 0, 0)),
-            pl.BlockSpec((1, SUB, LANES), lambda i, c: (i, 0, 0)),
+            pl.BlockSpec((16,), lambda i: (0,)),
+            pl.BlockSpec((16,), lambda i: (0,)),
+            pl.BlockSpec((256,), lambda i: (0,)),
+            pl.BlockSpec((steps, BLOCK), lambda i: (0, i)),
+            lanes, lanes, lanes,
         ],
-        out_specs=pl.BlockSpec(
-            (1, CH * d * SUB, LANES), lambda i, c: (i, c, 0)
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, steps * d * SUB, LANES), _I32),
-        scratch_shapes=[pltpu.VMEM((9 * SUB, LANES), _I32)],
+        out_specs=pl.BlockSpec((steps * d, BLOCK), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((steps * d, nseg), _I32),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(thresh, offs, masks, feed, counts, raw, rleraw)
-    return out
-
-
-def decode_segments_pallas(feed, counts, raw_flags, rle_raw_flags,
-                           thresh, offs, masks, *, offset: int = 0,
-                           interpret: bool | None = None, d: int = D):
-    """Drop-in decoder: feed u32[nseg, steps] (steps in P_BUCKETS,
-    nseg % 1024 == 0) -> packed records i32[B, steps*d*8, 128] on
-    device. Unpack on the host with :func:`unpack_records`."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    nseg, steps = feed.shape
-    assert nseg % BLOCK == 0, nseg
-    b = nseg // BLOCK
-    feed_p = jnp.transpose(
-        jnp.asarray(feed).astype(jnp.uint32).reshape(
-            b, SUB, LANES, steps
-        ),
-        (0, 3, 1, 2),
-    ).reshape(b, steps * SUB, LANES)
-    feed_p = lax.bitcast_convert_type(feed_p, _I32)
-
-    def tile(v, dt=_I32):
-        return jnp.asarray(v).astype(dt).reshape(b, SUB, LANES)
-
-    return _decode_pallas_jit(
-        feed_p, tile(counts), tile(raw_flags), tile(rle_raw_flags),
+        name="tbc2_decode",
+    )(
         jnp.asarray(thresh, _I32), jnp.asarray(offs, _I32),
-        jnp.asarray(masks, _I32).reshape(64),
-        offset=offset, steps=steps, interpret=interpret, d=d,
+        jnp.asarray(syms, _I32), feed_t, counts.astype(_I32),
+        raw_flags.astype(_I32), rle_raw_flags.astype(_I32),
     )
-
-
-def unpack_records(packed: np.ndarray):
-    """Host: packed i32[B, steps*D*8, 128] -> (chars u8[nseg, S],
-    ends u16[nseg, S]) in segment order (S = steps * D)."""
-    b, s8, _ = packed.shape
-    s = s8 // SUB
-    arr = np.asarray(packed).reshape(b, s, SUB, LANES)
-    arr = arr.transpose(0, 2, 3, 1).reshape(b * BLOCK, s)
-    chars = (arr >> 16).astype(np.uint8)
-    ends = (arr & 0xFFFF).astype(np.uint16)
-    return chars, ends
+    packed = packed.T
+    return (
+        _srl(packed, 16).astype(jnp.uint8),
+        (packed & 0xFFFF).astype(jnp.uint16),
+    )

@@ -1,4 +1,4 @@
-"""Device LZ77 factorization (TPU): prefix-doubling ranks, no tries.
+"""Device LZ77 factorization: prefix-doubling ranks, no tries.
 
 Replaces the reference's sequential PSV/NSV scan over the LCP array
 (``compressors/LZSSLCPCompressor.hpp:60-115``) with array programs
@@ -135,8 +135,8 @@ def _match_device(text, *, max_len: int):
     # Extension by ONE shared word-window round (round 4): both
     # candidates share the same verified base (the largest matching
     # class level), so the pos-side fetch is shared — 3 row fetches
-    # and two compare trees replace the former binary-lifting descent
-    # (~44 elementwise gathers: 417 ms/MiB measured on v5e).
+    # and two compare trees replace a binary-lifting descent of ~44
+    # elementwise gathers.
     T4 = _word_table(text)
     W = 64  # residual <= 256 - base < 4W bytes
     base_l = jnp.minimum(jnp.where(cand >= 0, base, 0), limit)
@@ -176,9 +176,8 @@ def _psv_smaller(A):
     dominance max, carried as a scan payload in the merge), saving the
     caller a 10 ms/M ``A[slot]`` gather.
 
-    Sort/scan formulation (v5e: elementwise gathers run ~100M lookups/s
-    while ``lax.sort`` moves ~500M elem/s — the round-3 pointer-doubling
-    version spent 1.6 s/MiB in ~40 gather rounds; this one does zero):
+    Sort/scan formulation, with zero gather rounds (a pointer-doubling
+    version needs ~40):
 
     1. **In-chunk** (chunks of 128): full (C, C) dominance compare per
        chunk — ``psv_in`` = max lane ``l' < l`` with a smaller value.
@@ -283,10 +282,9 @@ def _word_table(text):
     r..r+_TBL_W+1 (bytes [4r, 4r + 4*_TBL_W + 8)), so a window fetch is
     ONE row gather plus the byte-in-word shift. The round-4 table used
     128-byte rows and needed 5 conditional lane-shift stages per fetch
-    to align the word offset — measured at ~27 ms per 1M fetches on the
-    v5e while the row gather itself and the settle compare tree are
-    ~free; this layout removes the lane stages at the price of a
-    (n/4, 66) table (66 bytes/char HBM, built once per matcher call)."""
+    to align the word offset; this layout removes the lane stages at
+    the price of a (n/4, 66) table (66 bytes/char of device memory,
+    built once per matcher call)."""
     n = text.shape[0]
     R = (n + 3) // 4
     cols = _TBL_W + 2
@@ -369,8 +367,7 @@ def _refine_exact(text, T4, pos, cand, l0, limit, ranks, L: int):
     bracket): rank-probe descent brings the residual under 256, then
     ONE 256-byte word-window round compares text directly — two
     128-lane row fetches total instead of 2 elementwise gathers per
-    descent level (v5e: row fetches stream ~6x the elementwise-gather
-    rate, and word packing does 4 bytes per lane op)."""
+    descent level (word packing does 4 bytes per lane op)."""
     n = text.shape[0]
     has = cand >= 0
     length = jnp.minimum(jnp.where(has, l0, 0), limit)
@@ -648,12 +645,11 @@ def resolve_factors_device(literals: np.ndarray, fpos: np.ndarray,
     invariant of the lzss/lzss_lcp wire format). ``n`` = output length.
     Shapes bucket to powers of two so compilations are reused.
 
-    **Spec path only** (round-5 adjudication): measured 306 ms/MiB
-    batched vs ~22 for the native host stream decode — the resolve is
-    gather/scan-bound and loses on single-chip hardware, so no default
-    dispatches here; the production decode paths (CLI, BlockCodec) are
-    host-native. Kept as the executable specification for a future
-    device-resident multi-chip pipeline (docs/BENCHMARKS.md table)."""
+    **Spec path only**: the resolve is gather/scan-bound, and no
+    default dispatches here; the production decode paths (CLI,
+    BlockCodec) are host-native. Kept as the executable specification
+    for a future device-resident multi-device pipeline; its speed on the
+    GPU is not measured."""
     if n == 0:
         return b""
     n_pad = max(256, 1 << (n - 1).bit_length())

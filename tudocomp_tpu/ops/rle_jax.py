@@ -2,7 +2,7 @@
 
 Format: the reference scheme (``compressors/RunLengthEncoder.hpp``: run of
 n >= 2 equal bytes -> byte, byte, vbyte(n - 2 + offset); single byte
-verbatim) with one TPU-native amendment — **runs are split into pieces of
+verbatim) with one device-friendly amendment — **runs are split into pieces of
 at most RUN_CAP = 8192 bytes**. The first piece of a run uses the doubled
 char; continuation pieces of length L emit the char ONCE followed by
 vbyte(L - 1 + offset), because the reference decoder keeps ``prev``

@@ -1,14 +1,15 @@
 """Device suffix array / ISA / BWT via prefix doubling (SURVEY.md §7#5).
 
 Replaces divsufsort's induced copying (``util/divsufsort/``) with the
-sort-based formulation that maps onto TPU:
+sort-based formulation that maps onto a data-parallel device:
 
 - one doubling round = ONE multi-key ``lax.sort`` carrying the suffix
   index as payload (lexicographic on (rank, rank[i+k])), plus one sort
   to land the new ranks back in position order;
-- **no scatters or gathers anywhere** — on TPU both are serialized
-  (~0.3 s per 1M elements measured on v5e) while sorts are fast; every
-  permutation application is a co-sort ("permute via sort" pattern);
+- **no scatters or gathers anywhere**: every permutation application
+  is a co-sort ("permute via sort" pattern), a choice made on hardware
+  where scatters and gathers were slow and sorts fast, and re-decided
+  by measurement on the GPU;
 - ISA and BWT are likewise co-sorts: ``isa = sort(iota by sa)``,
   ``bwt[i] = text[sa[i]-1]`` = ``sort(text by isa[(j+1) mod n])``.
 
@@ -61,7 +62,7 @@ def suffix_array_device(text: jnp.ndarray) -> jnp.ndarray:
     def round_body(state):
         rank, k = state
         # rank[i + k], -1 past the end: dynamic_slice of a padded copy
-        # (roll with a traced shift lowers to a slow gather on TPU)
+        # (a roll with a traced shift lowers to a gather)
         padded = jnp.concatenate([rank, jnp.full(n, -1, _I32)])
         key2 = lax.dynamic_slice(padded, (k,), (n,))
         return densify(rank, key2), k * 2

@@ -1,6 +1,6 @@
 """Multi-chip scaling layer (no reference counterpart — SURVEY.md §2.7).
 
-The reference is single-core; this package is the TPU-native scaling
+The reference is single-core; this package is the data-parallel scaling
 design mandated by BASELINE.json: data-parallel blocks over a device
 mesh, psum-merged histograms, broadcast code tables, and ordered gather
 of per-block compressed frames.

@@ -1,6 +1,6 @@
 """Multi-host orchestration (no reference counterpart — SURVEY.md §2.7).
 
-The scaling model across a TPU pod slice:
+The scaling model across the devices of several hosts:
 
 - ``jax.distributed.initialize()`` on every host (coordinator address
   from the env / args), then one global ``Mesh`` over all devices with

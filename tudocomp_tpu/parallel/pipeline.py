@@ -6,7 +6,7 @@ segment axis split over the whole mesh (dp x sp — the two axes exist so
 callers can later map dp to hosts and sp to chips within a host):
 
 - each shard RLE-encodes and Huffman-packs its local segments with the
-  same fused Pallas kernels as the single-device path, so the assembled
+  same stage functions as the single-device path, so the assembled
   container is **byte-identical** regardless of mesh shape;
 - the **histogram** is psum-merged over the mesh (the only cross-chip
   communication on the encode path), and the canonical table broadcasts
@@ -16,7 +16,8 @@ callers can later map dp to hosts and sp to chips within a host):
   stitching because every segment is framed independently.
 
 Everything here works identically on a virtual 8-device CPU mesh (tests)
-and a real TPU slice.
+and on the GPUs of one host, which NVLink joins all to all, so the mesh
+shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -66,7 +67,6 @@ def sharded_rle_stage(mesh: Mesh, seg_rows, seg_lens, *, offset: int,
         out_specs=(
             P(("dp", "sp")), P(("dp", "sp")), P(("dp", "sp")), P(),
         ),
-        check_vma=False,  # pallas_call inside shard_map
     )
     def fn(rows, lens, gbase):
         from tudocomp_tpu.models.blockcodec import HIST_SEGS, rle_stage
@@ -99,7 +99,6 @@ def sharded_huff_stage(mesh: Mesh, rows, counts, sym_code, sym_len):
         mesh=mesh,
         in_specs=(P(("dp", "sp")), P(("dp", "sp")), P(), P()),
         out_specs=(P(("dp", "sp")), P(("dp", "sp")), P(("dp", "sp"))),
-        check_vma=False,
     )
     def fn(rows, counts, code, ln):
         from tudocomp_tpu.models.blockcodec import huff_stage
@@ -110,10 +109,11 @@ def sharded_huff_stage(mesh: Mesh, rows, counts, sym_code, sym_len):
 
 
 def sharded_decode_stage(mesh: Mesh, feed, counts, hraw, rleraw, thresh,
-                         offs, masks, *, offset: int, d: int = 11):
-    """Lockstep segment decode sharded over the mesh (XLA scan decoder;
-    every segment is independently framed, so decode needs **zero**
-    cross-chip communication — the tables are replicated arguments)."""
+                         offs, syms, *, offset: int, d: int, kernel: str):
+    """Lockstep segment decode sharded over the mesh (every segment is
+    independently framed, so decode needs **zero** cross-device
+    communication — the tables are replicated arguments). ``kernel``
+    is ``backend.tbc2_decoder()``'s choice."""
 
     @functools.partial(
         shard_map,
@@ -123,51 +123,53 @@ def sharded_decode_stage(mesh: Mesh, feed, counts, hraw, rleraw, thresh,
             P(("dp", "sp")), P(), P(), P(),
         ),
         out_specs=(P(("dp", "sp")), P(("dp", "sp"))),
-        check_vma=False,  # scan carries start as replicated constants
+        # both decoders fail the check: the scan's carry starts as
+        # replicated constants, and the pallas_call's out_shape names
+        # no varying axes
+        check_vma=False,
     )
-    def fn(feed, counts, hraw, rleraw, thresh, offs, masks):
-        from tudocomp_tpu.ops.hufdec_jax import decode_segments
+    def fn(feed, counts, hraw, rleraw, thresh, offs, syms):
+        if kernel == "pallas":
+            from tudocomp_tpu.ops.hufdec_pallas import (
+                decode_segments_pallas as dec,
+            )
+        else:
+            from tudocomp_tpu.ops.hufdec_jax import decode_segments as dec
 
-        return decode_segments(
-            feed, counts, hraw, rleraw, thresh, offs, masks,
+        return dec(
+            feed, counts, hraw, rleraw, thresh, offs, syms,
             offset=offset, d=d,
         )
 
-    return jax.jit(fn)(feed, counts, hraw, rleraw, thresh, offs, masks)
+    return jax.jit(fn)(feed, counts, hraw, rleraw, thresh, offs, syms)
 
 
 def decompress_sharded(codec, mesh: Mesh, data: bytes) -> bytes:
     """Sharded decompression of a TBC2 container (inverse of
     :func:`compress_sharded`): per-segment payload feeds scatter over
-    the mesh, each chip decodes its segments in lockstep, and the host
-    finish (``np.repeat`` expansion) reassembles in order.
+    the mesh, each device decodes its segments in lockstep, and the
+    host finish (``np.repeat`` expansion) reassembles in order.
 
-    One static scan length (the largest segment's) serves the whole
-    batch here; the single-chip path's payload-proportional bucketing
-    (``ops/hufdec_jax.S_BUCKETS``) applies per shard-batch in the same
-    way when throughput matters.
+    One static step count (the largest segment's) serves the whole
+    container here.
     """
+    from tudocomp_tpu import backend
     from tudocomp_tpu.ops.hufdec_jax import (
-        SEG, build_feed, decoder_tables, expand_records, needed_steps,
+        build_feed, decoder_tables, expand_records, needed_steps,
         snap_steps,
     )
+    from tudocomp_tpu.ops.hufdec_pallas import BLOCK
 
     (table, offset, orig_len, counts, flags, poff,
      pbytes) = codec._parse(data)
     if orig_len == 0:
         return b""
-    if table is not None:
-        t = decoder_tables(table)
-    else:
-        t = {
-            "thresh": np.zeros(16, np.int32),
-            "offs": np.zeros(16, np.int32),
-            "masks": np.zeros((8, 8), np.int32),
-        }
+    kernel = backend.tbc2_decoder()
+    t = decoder_tables(table)
     nseg = counts.shape[0]
-    pad_to = -(-nseg // mesh.size) * mesh.size
-    d = t.get("d", 11)
-    steps = snap_steps(int(needed_steps(pbytes, counts, d).max()))
+    unit = mesh.size * (BLOCK if kernel == "pallas" else 1)
+    pad_to = -(-nseg // unit) * unit
+    steps = snap_steps(int(needed_steps(pbytes, counts, t["d"]).max()))
     flat = np.frombuffer(data, np.uint8)
     feed, bc, hrw, rrw = build_feed(
         flat, np.arange(nseg), counts, flags, poff, pbytes, steps,
@@ -176,20 +178,12 @@ def decompress_sharded(codec, mesh: Mesh, data: bytes) -> bytes:
     s = NamedSharding(mesh, P(("dp", "sp")))
     chars, ends = sharded_decode_stage(
         mesh,
-        jax.device_put(jnp.asarray(feed), s),
-        jax.device_put(jnp.asarray(bc), s),
-        jax.device_put(jnp.asarray(hrw), s),
-        jax.device_put(jnp.asarray(rrw), s),
+        *(jax.device_put(jnp.asarray(x), s) for x in (feed, bc, hrw, rrw)),
         jnp.asarray(t["thresh"]), jnp.asarray(t["offs"]),
-        jnp.asarray(t["masks"]), offset=offset, d=d,
+        jnp.asarray(t["syms"]), offset=offset, d=t["d"], kernel=kernel,
     )
-    out_lens = np.minimum(
-        np.full(pad_to, SEG, np.int64),
-        np.maximum(orig_len - SEG * np.arange(pad_to, dtype=np.int64), 0),
-    )
-    return expand_records(
-        np.asarray(chars), np.asarray(ends), out_lens
-    )[:orig_len]
+    out = expand_records(np.asarray(chars), np.asarray(ends))
+    return out.reshape(-1)[:orig_len].tobytes()
 
 
 def compress_sharded(codec, mesh: Mesh, data: bytes) -> bytes:
@@ -202,10 +196,9 @@ def compress_sharded(codec, mesh: Mesh, data: bytes) -> bytes:
         return codec._assemble_empty()
     seg_rows, seg_lens = codec.split_segments(data)
     nseg = seg_rows.shape[0]
-    # each shard's batch must be a multiple of the pack kernels' group
-    from tudocomp_tpu.ops.segpack_pallas import G
-
-    n_dev = mesh.size * G
+    # each shard's batch is a multiple of 8 segments, so the per-shard
+    # 1-in-8 histogram samples union to the global one
+    n_dev = mesh.size * 8
     pad_to = -(-nseg // n_dev) * n_dev
     if pad_to != nseg:
         seg_rows = np.pad(seg_rows, ((0, pad_to - nseg), (0, 0)))
@@ -307,7 +300,7 @@ def compress_sharded_resumable(codec, mesh: Mesh, src_path: str,
 
     orig_len = os.path.getsize(src_path)
     nseg = -(-orig_len // SEG)
-    unit = mesh.size * 8  # pack-kernel group multiple per shard
+    unit = mesh.size * 8  # 1-in-8 sample alignment per shard
     if batch_segments is None:
         batch_segments = max(unit, (4096 // unit) * unit)
     batch_segments = -(-batch_segments // unit) * unit
